@@ -11,9 +11,10 @@ matching its F1 score.  This example reproduces that comparison on R-MAT graphs
         LHub  = predict_links(..., min_degree1=64)   # skip hubs (best-F1 regime)
 
 and reports scoring time, the LHub/IHub speedup, and both F1 scores.  IHub
-exercises every engine path in one run: the packed slot stream (s14/s15), the
-edge stream (s16: 552M slots exceed the slot budget) and the device-side
-huge-hub sub-plan (s16 has a source whose expansion exceeds one tile).
+exercises the engine's paths: the packed slot stream, the edge stream once
+the expansion exceeds the slot budget (sized from device memory), and the
+device-side huge-hub sub-plan (s16 has a source whose expansion exceeds one
+tile).
 
 Usage:  python examples/ihub_vs_lhub/run.py [scales...]   (default 14 15 16)
 Writes speedup.csv + speedup.md next to this file.
@@ -29,6 +30,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", ".."))
+
+import jax  # noqa: E402
 
 from linkpred_tpu import PredictOptions, predict_links  # noqa: E402
 from linkpred_tpu.bench.harness import common_pair_count, directed_pairs  # noqa: E402
@@ -97,8 +100,8 @@ def main(scales=(14, 15, 16), fractions=(0.01, 0.1), repeat=3):
         w.writerows(rows)
     with open(os.path.join(HERE, "speedup.md"), "w") as f:
         f.write(
-            "# LHub vs IHub speedup (R-MAT, jaccard, hub threshold 64, 1 TPU"
-            " v5e chip)\n\n"
+            "# LHub vs IHub speedup (R-MAT, jaccard, hub threshold 64, "
+            f"{jax.devices()[0].device_kind})\n\n"
             "Reproduces the reference's headline comparison"
             " (`/root/reference/README.md:9-17`:\nLHub beats IHub by 1622x /"
             " 415x on average at 10^-2|E| / 0.1|E| removed, 13\nSuiteSparse"
@@ -116,27 +119,19 @@ def main(scales=(14, 15, 16), fractions=(0.01, 0.1), repeat=3):
         f.write("""
 Notes:
 
-- The speedup grows with graph size exactly as the reference observes, and
-  the CLIFF location tracks the engine's memory ceiling: through s16 IHub
-  now fits the packed slot stream (round 5: the HBM-sized budget plus
-  bucket padding covers its ~566M-slot expansion — 9.7 GB — so s16 IHub
-  dropped 31.8 s -> 1.9 s vs round 3 and the ratio there is the pure work
-  ratio, ~15-80x); at s17 the IHub expansion (~1.25G slots) exceeds the
-  budget and falls to the memory-light edge-stream path (device-side
-  slot-map rebuild, gather-bound) — the same cliff that makes the
-  reference's IHub thrash caches on large graphs — and the ratio explodes
-  to ~1,900x at BOTH fractions, right at the reference's published
-  1622x/415x averages.
-- s17 IHub exercises the edge stream (chunked dispatch, 32 tiles/program)
-  and segmented deferred selection; s16 IHub exercises the packed path at
-  its memory limit.  LHub at every scale is the bench-default engine.
+- The speedup grows with graph size as the reference observes.  Where the
+  IHub expansion exceeds the packed slot budget it falls to the memory-light
+  edge-stream path (device-side slot-map rebuild, gather-bound), which
+  widens the ratio — the same cliff that makes the reference's IHub thrash
+  caches on large graphs.
+- The edge-stream IHub runs exercise chunked dispatch and segmented
+  deferred selection; LHub at every scale is the bench-default engine.
 - F1 is ~0 for BOTH approaches on R-MAT: synthetic R-MAT graphs have far
   weaker triadic closure than the reference's web/social graphs (the
   reference's own IHub F1 is just 1.8e-2 / 1.1e-1).  The claim these columns
   support is the reference's equivalence claim — LHub's F1 matches IHub's —
-  not absolute accuracy; for F1-meaningful recovery demos see
-  `examples/ppart_sweep` (planted partitions, where removed edges are
-  genuinely recoverable).
+  not absolute accuracy; for F1-meaningful recovery demos run the
+  planted-partition sweep in `examples/README.md`.
 """)
     print("wrote", os.path.join(HERE, "speedup.csv"))
     return rows

@@ -11,18 +11,13 @@ path the engine exposes for that (`predict/api.py` sources=..., PlanCache,
     (graph, threshold, sources) — request latency is scoring-only;
   * `top_per_source` turns the engine's global top-k into a per-user top-k.
 
-Run: python examples/serving/run.py   (CPU or TPU; ~seconds)
+Run: python examples/serving/run.py   (CPU or GPU; ~seconds)
 """
 import os
 import sys
 import time
 
 import numpy as np
-
-if "cpu" in os.environ.get("JAX_PLATFORMS", ""):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))

@@ -1,9 +1,9 @@
-"""linkpred_tpu — a TPU-native neighborhood link-prediction framework.
+"""linkpred_tpu — neighborhood link prediction on an accelerator, in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 ``puzzlef/neighborhood-link-prediction-openmp`` (IHub/LHub link prediction over nine
 neighborhood-similarity metrics, dynamic batch experiments, precision/recall
-harness), built TPU-first: static CSR arrays, sort-based tiled scoring under ``jit``,
+harness), built for an accelerator: static CSR arrays, sort-based tiled scoring under ``jit``,
 `shard_map` scaling over device meshes.
 
 Layout (reference layer map in SURVEY.md §1):

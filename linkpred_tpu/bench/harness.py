@@ -190,12 +190,12 @@ def run_experiment(
                 # multi-metric pass divides ONE shared expansion+sort evenly
                 # across the metrics, so its per-row times are not comparable
                 # to the reference's per-technique scans (main.cxx:212-220).
-                # A reference-CSV reader sees `...TpuFused64` and cannot
+                # A reference-CSV reader sees `...JaxFused64` and cannot
                 # mistake it for a per-technique measurement; `--unfused`
                 # (or a single metric, where nothing is amortized) keeps the
-                # plain `...Tpu64` label.
+                # plain `...Jax64` label.
                 amortized = cfg.fused_metrics and len(cfg.metrics) > 1
-                tag = "TpuFused" if amortized else "Tpu"
+                tag = "JaxFused" if amortized else "Jax"
                 technique = f"{TECHNIQUE_NAMES[metric]}{tag}{deg}"
                 # NOTE: the reference prints the deletion fraction in the "+" slot
                 # with 0.0 in the "-" slot (`main.cxx:199-206` passes insertionsf=

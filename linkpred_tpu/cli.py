@@ -29,7 +29,7 @@ __all__ = ["main", "build_parser"]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="linkpred_tpu",
-        description="TPU-native IHub/LHub neighborhood link prediction experiment",
+        description="IHub/LHub neighborhood link prediction experiment (JAX)",
     )
     p.add_argument("file", help="input graph in MatrixMarket (.mtx) format")
     p.add_argument("symmetric", nargs="?", default="0",
@@ -58,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score each metric as its own full pass (honest "
                         "per-technique times, like the reference's per-metric "
                         "scans; default shares one pass, amortizes the time, "
-                        "and tags those rows ...TpuFused<deg> in the log)")
+                        "and tags those rows ...JaxFused<deg> in the log)")
     return p
 
 

@@ -1,4 +1,4 @@
-"""CSR graph container — the TPU-native replacement for the reference's adjacency
+"""CSR graph container — the static-shape replacement for the reference's adjacency
 structures.
 
 The reference (`/root/reference/inc/Graph.hxx:23-372`) stores a ``DiGraph`` as one

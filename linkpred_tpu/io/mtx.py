@@ -12,7 +12,7 @@ Behavioral parity with the reference reader (`/root/reference/inc/mtx.hxx`):
 * ``weighted=False`` ignores any third column (the reference parses and drops it,
   `mtx.hxx:170-177`).
 
-Implementation is NumPy-vectorized text parsing (the TPU-native analog of the
+Implementation is NumPy-vectorized text parsing (the vectorized analog of the
 reference's 131072-line blocked OpenMP parse, `mtx.hxx:152-193`); a C++ fast path is
 provided by :mod:`linkpred_tpu.io.native` when the shared library is built.
 """

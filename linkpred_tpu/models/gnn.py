@@ -1,15 +1,19 @@
 """GraphSAGE encoder + SDDMM decoder: the learned/hybrid link-prediction family.
 
-The reference is purely heuristic; this module is the TPU-first extension called
+The reference is purely heuristic; this module is the extension called
 for by the project baseline (BASELINE.json configs[4]): a 2-layer GraphSAGE mean
 aggregator (SpMM over the CSR edge list as `segment_sum` of gathered neighbor
-features — MXU-friendly dense feature matmuls, bandwidth-friendly one-gather
+features — dense feature matmuls, bandwidth-friendly one-gather
 aggregation) with an SDDMM decoder (per-candidate-pair dot / Hadamard-MLP score),
 plus a hybrid model that mixes the learned score with any heuristic metric's
 score over the same candidate pairs.
 
 Pure-JAX functional design: ``init(key, ...) -> params``, jitted ``apply``; no
 Flax dependency so the module stays self-contained.
+
+Off the scoring engine's main path and tested on the CPU.  On a GPU a float32
+matmul may run in TF32, so a reference computed there must ask for
+``precision="highest"`` (or ``jax.default_matmul_precision("highest")``).
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def sddmm_scores(emb, u, v):
 
 
 def sample_neighbors(key, offsets, indices, degrees, nodes, fanout: int):
-    """Uniform-with-replacement neighbor sampling, TPU-idiomatic: one randint
+    """Uniform-with-replacement neighbor sampling, static-shaped: one randint
     + one gather per (node, slot), static [len(nodes), fanout] shape — no
     host round trip, no dynamic shapes.  Isolated vertices sample themselves
     (a valid gather index); `sage_encode_sampled` zero-masks their aggregate
@@ -105,7 +109,7 @@ def sage_encode_sampled(params, feats, offsets, indices, degrees, seeds, key,
 
     2-layer only (matches `sage_init`).  Shapes: seeds [B] ->
     level-1 nodes [B, F2] -> level-2 samples [B, F2, F1]; every gather is a
-    static-shape `take`, MXU-friendly batched matmuls do the rest."""
+    static-shape `take`, batched matmuls do the rest."""
     f2, f1 = fanouts
     k1, k2, k3 = jax.random.split(key, 3)
     n1 = sample_neighbors(k1, offsets, indices, degrees, seeds, f2)  # [B,F2]
@@ -226,7 +230,7 @@ class GNNPredictor:
     candidate_metric: str = "common_neighbors"
     min_degree1: int = 0
     candidate_factor: int = 4   # score this multiple of max_edges candidates
-    name: str = "predictLinksGraphSageSDDMMTpu"
+    name: str = "predictLinksGraphSageSDDMMJax"
 
     def predict(self, g: CSRGraph, max_edges: Optional[int] = None,
                 min_score: float = float("-inf")) -> PredictResult:
@@ -256,7 +260,7 @@ class HybridPredictor:
     gnn: GNNPredictor
     heuristic: HeuristicPredictor
     alpha: float = 0.5
-    name: str = "predictLinksHybridTpu"
+    name: str = "predictLinksHybridJax"
 
     def predict(self, g: CSRGraph, max_edges: Optional[int] = None) -> PredictResult:
         g = g.host()

@@ -36,7 +36,7 @@ class HeuristicPredictor:
 
     @property
     def name(self) -> str:
-        return f"{TECHNIQUE_NAMES[self.metric]}Tpu{self.min_degree1}"
+        return f"{TECHNIQUE_NAMES[self.metric]}Jax{self.min_degree1}"
 
     def predict(self, g: CSRGraph, max_edges: Optional[int] = None,
                 min_score: float = 0.0, repeat: int = 1,

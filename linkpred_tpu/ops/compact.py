@@ -1,144 +1,39 @@
-"""Threshold compaction for the deferred selection: a Pallas shift-pack.
+"""Threshold compaction for the deferred selection.
 
 The deferred top-k selection (`predict/scoring.py::_argselect_blocked`)
-sorts EVERY buffered lane (2-operand, per 2^23-lane block) even though only
-~k(1+eps) of them can matter — at the s21 bench shape that is ~240M sorted
-lanes for k = 2.95M winners, ~320 ms of the 791 ms pass.  This module cuts
-the lanes entering the sort instead:
+sorts every buffered lane even though only ~k(1+eps) of them can matter.
+This module cuts the lanes entering the sort instead:
 
-1. **Sampled threshold** (XLA): a strided sample of the selection keys is
-   sorted (1 operand) and the k-quantile with a safety margin gives a key
-   threshold T such that `count(key <= T) >= k` with high probability
-   (ascending keys = descending scores, `scoring._desc_score_key`).
-2. **Pallas pack kernel**: per PACK_CHUNK-lane chunk, survivors (key <= T) are
-   packed to the front and emitted into a fixed chunk/RATIO-sized block
-   (statically placed — no dynamic writes), with the ORIGINAL lane index
-   synthesized in-kernel and packed alongside.  Packing uses LSB-first
-   binary-shift routing: rank = cumsum(keep)-1, move distance d = pos-rank,
-   and for each bit b every survivor with bit b of d set shifts left by
-   2^b.  Because d is non-decreasing and gains less than the position gap
-   between consecutive survivors, the intermediate positions
-   `pos - (d & (2^(b+1)-1))` are strictly increasing across survivors —
-   the routing is collision-free at every step (no scatter needed).
-3. **Exactness check + fallback**: the kernel also counts survivors per
-   chunk.  If any chunk overflows its block (survivors cluster harder than
-   RATIO allows) or the global survivor count falls short of k (sampling
-   undershot T), the caller's `lax.cond` falls back to the full blocked
-   sort — the packed path is an exact-or-fallback accelerator, never an
+1. **Sampled threshold**: a strided sample of the selection keys is sorted
+   and the k-quantile with a safety margin gives a key threshold T such that
+   `count(key <= T) >= k` with high probability (ascending keys = descending
+   scores, `scoring._desc_score_key`).
+2. **Pack**: per PACK_CHUNK-lane chunk, survivors (key <= T) are compacted in
+   order into a fixed chunk/RATIO-lane block together with their original
+   lane index: one cumsum for the ranks and one scatter.
+3. **Exactness check + fallback**: survivors are counted per chunk.  If any
+   chunk overflows its block or the global count falls short of k (sampling
+   undershot T), the caller's `lax.cond` falls back to the full blocked sort
+   — the packed path is an exact-or-fallback accelerator, never an
    approximation.
 
 The reference analog is the per-thread bounded heap (predict.hxx:309-337):
-it too touches every candidate once and keeps only plausible winners;
-sort-free thresholding is the data-parallel expression of the same idea.
+it too touches every candidate once and keeps only plausible winners.
 """
 from __future__ import annotations
 
 import os
-from functools import partial
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["pack_survivors", "sample_threshold", "PACK_CHUNK", "PACK_RATIO"]
 
-# Chunk/budget sizing: survivors CLUSTER in hub tiles (measured at the s21
-# bench shape: global survivors 1.29x k, but the worst 2^17-lane chunk held
-# 23.9k survivors = 18% of its lanes — chunk/8 budgets overflowed and the
-# cond fell back).  Bigger windows pool the slack: a 2^19-lane chunk with a
-# chunk/4 budget tolerates 25% local clustering over half a tile — the r5
-# campaign measured the 2^18 budget ONE chunk over at s22 (worst 72,523 vs
-# 65,536, diag_pack), silently falling back; at 2^19 every bench scale fits
-# (s19 38k, s21 47k, s22 ~73k+neighbor < 131k).  Env-overridable for A/Bs.
+# Chunk/budget sizing: survivors cluster in hub tiles, so a large chunk with
+# a chunk/4 budget pools the slack.  Env-overridable for A/Bs.
 PACK_CHUNK = 1 << int(os.environ.get("LINKPRED_PACK_CHUNK_LOG2", "19"))
 PACK_RATIO = int(os.environ.get("LINKPRED_PACK_RATIO", "4"))
-_ROWS = PACK_CHUNK // 128
-
-
-def _flat_shift_left(x, s: int, rows: int, fill):
-    """Shift a (rows, 128) row-major array left by ``s`` flat positions:
-    element (r, l) takes the value at flat index r*128 + l + s (``fill``
-    beyond the end)."""
-    i32 = jnp.int32
-    lanes = jax.lax.broadcasted_iota(i32, (rows, 128), 1)
-    sr, sl = divmod(s, 128)
-    # circular left-roll spelled with POSITIVE shifts (size - s): negative
-    # pltpu.roll shifts crash this host's Mosaic compile helper
-    rr = (rows - sr) % rows
-    if sl == 0:
-        a = pltpu.roll(x, np.int32(rr), 0) if rr else x
-    else:
-        # value at flat +s = (r+sr, l+sl), overflowing into row r+sr+1
-        r1 = pltpu.roll(x, np.int32(rr), 0) if rr else x
-        rr2 = (rows - sr - 1) % rows
-        r2 = pltpu.roll(x, np.int32(rr2), 0) if rr2 else x
-        same = pltpu.roll(r1, np.int32(128 - sl), 1)
-        nxt = pltpu.roll(r2, np.int32(128 - sl), 1)
-        a = jnp.where(lanes < 128 - sl, same, nxt)
-    return jnp.where(_flat_pos(rows) < rows * 128 - s, a, fill)
-
-
-def _flat_pos(rows: int):
-    i32 = jnp.int32
-    r = jax.lax.broadcasted_iota(i32, (rows, 128), 0)
-    l = jax.lax.broadcasted_iota(i32, (rows, 128), 1)
-    return r * 128 + l
-
-
-def _pack_kernel(thr_ref, key_ref, out_key_ref, out_idx_ref,
-                 *, rows: int, out_rows: int):
-    i32 = jnp.int32
-    u32 = jnp.uint32
-    c = pl.program_id(0)
-    key = key_ref[...]
-    pos = _flat_pos(rows)
-    gidx = c * (rows * 128) + pos
-
-    keep = key <= thr_ref[0, 0]
-    # rank = inclusive cumsum of keep, two-level (lanes then rows)
-    x = keep.astype(i32)
-    lanes = jax.lax.broadcasted_iota(i32, (rows, 128), 1)
-    rws = jax.lax.broadcasted_iota(i32, (rows, 128), 0)
-    s = 1
-    while s < 128:
-        x = jnp.where(lanes >= s, x + pltpu.roll(x, np.int32(s), 1), x)
-        s *= 2
-    rt = jnp.broadcast_to(x[:, 127:128], (rows, 128))
-    rte = pltpu.roll(rt, np.int32(1), 0)
-    rte = jnp.where(rws >= 1, rte, i32(0))
-    s = 1
-    while s < rows:
-        rte = jnp.where(rws >= s, rte + pltpu.roll(rte, np.int32(s), 0), rte)
-        s *= 2
-    rank = x + rte - 1                     # inclusive cumsum - 1
-
-    # LSB-first binary-shift routing (see module docstring for the
-    # collision-freedom argument).  Liveness rides d's SIGN (-1 = dead lane):
-    # one shifted operand per step instead of two — a separate i32 0/1 mask
-    # army measured 16.31 MB of Mosaic scoped VMEM at the s19 bench shape,
-    # 320 KB past the 16 MB budget (found by the round-5 A/B campaign: the
-    # unfused-tail + pack config failed to compile).
-    d = jnp.where(keep, pos - rank, i32(-1))
-    vk = key
-    vi = gidx
-    dead_k = u32(0xFFFFFFFF)
-    s = 1
-    while s < rows * 128:
-        m_d = _flat_shift_left(d, s, rows, i32(-1))
-        arrives = (m_d >= 0) & ((m_d & s) != 0)
-        stays = (d >= 0) & ((d & s) == 0)
-        vk = jnp.where(arrives, _flat_shift_left(vk, s, rows, dead_k),
-                       jnp.where(stays, vk, dead_k))
-        vi = jnp.where(arrives, _flat_shift_left(vi, s, rows, i32(0)),
-                       jnp.where(stays, vi, i32(0)))
-        d = jnp.where(arrives, m_d - s, jnp.where(stays, d, i32(-1)))
-        s *= 2
-
-    alive = d[:out_rows] >= 0
-    out_key_ref[...] = jnp.where(alive, vk[:out_rows], dead_k)
-    out_idx_ref[...] = jnp.where(alive, vi[:out_rows], i32(0))
 
 
 def pack_survivors(key, threshold, chunk: int = None, ratio: int = None):
@@ -148,52 +43,31 @@ def pack_survivors(key, threshold, chunk: int = None, ratio: int = None):
     threshold).  Returns ``(packed_key u32[total/ratio],
     packed_idx i32[total/ratio], counts i32[nch])`` where ``packed_idx``
     holds ORIGINAL lane indices and dead output lanes carry the 0xFFFFFFFF
-    key sentinel (sorts after every survivor).
+    key sentinel (sorts after every survivor).  An overflowing chunk keeps
+    its first chunk/ratio survivors in order.
     """
     chunk = PACK_CHUNK if chunk is None else chunk   # module attrs at call
     ratio = PACK_RATIO if ratio is None else ratio   # time (tests patch them)
+    i32 = jnp.int32
     total = key.shape[0]
-    rows = chunk // 128
-    assert rows * 128 == chunk and rows % ratio == 0, (chunk, ratio)
-    assert (rows // ratio) % 8 == 0, (chunk, ratio)  # sublane-tiled blocks
     nch = total // chunk
-    assert nch * chunk == total, (total, chunk)
-    out_rows = rows // ratio
+    assert nch * chunk == total and chunk % ratio == 0, (total, chunk, ratio)
+    w = chunk // ratio
+    out = total // ratio
 
-    kern = partial(_pack_kernel, rows=rows, out_rows=out_rows)
-    blk_in = pl.BlockSpec((rows, 128), lambda c: (c, 0),
-                          memory_space=pltpu.VMEM)
-    blk_out = pl.BlockSpec((out_rows, 128), lambda c: (c, 0),
-                           memory_space=pltpu.VMEM)
-    interpret = jax.default_backend() == "cpu"
-    with jax.enable_x64(False):   # gridded pallas under x64: see fused_tail
-        pk, pidx = pl.pallas_call(
-            kern,
-            grid=(nch,),
-            in_specs=[pl.BlockSpec((1, 1), lambda c: (0, 0),
-                                   memory_space=pltpu.SMEM),
-                      blk_in],
-            out_specs=[blk_out, blk_out],
-            out_shape=[jax.ShapeDtypeStruct((nch * out_rows, 128),
-                                            jnp.uint32),
-                       jax.ShapeDtypeStruct((nch * out_rows, 128),
-                                            jnp.int32)],
-            # headroom over Mosaic's 16 MB default: the ~19-step routing
-            # unroll's temporaries are at the compiler's scheduling mercy,
-            # and one borderline schedule already cost a bench config (the
-            # chip's physical VMEM comfortably exceeds this; the bitonic
-            # probes ran at 100 MB on this host)
-            compiler_params=None if interpret else pltpu.CompilerParams(
-                vmem_limit_bytes=48 * 1024 * 1024),
-            interpret=interpret,
-        )(jnp.reshape(threshold.astype(jnp.uint32), (1, 1)),
-          key.reshape(rows * nch, 128))
-    # per-chunk survivor counts via one XLA reduction over the same predicate
-    # (a per-chunk SMEM output would need an unsupported (1,1) block of a
-    # (nch,1) array on the TPU lowering)
-    cnt = jnp.sum((key.reshape(nch, chunk) <= threshold.astype(key.dtype))
-                  .astype(jnp.int32), axis=1)
-    return pk.reshape(-1), pidx.reshape(-1), cnt
+    keep = (key <= threshold.astype(key.dtype)).reshape(nch, chunk)
+    rank = jnp.cumsum(keep, axis=1, dtype=i32) - 1
+    cnt = rank[:, -1] + 1
+    lane = jax.lax.broadcasted_iota(i32, (total,), 0)
+    base = (jax.lax.broadcasted_iota(i32, (nch, 1), 0) * w)
+    # dropped lanes get distinct out-of-range slots, so every index is unique
+    dest = jnp.where(keep & (rank < w), base + rank,
+                     out + lane.reshape(nch, chunk)).reshape(total)
+    pk = jnp.full((out,), jnp.uint32(0xFFFFFFFF), key.dtype).at[dest].set(
+        key, mode="drop", unique_indices=True)
+    pidx = jnp.zeros((out,), i32).at[dest].set(
+        lane, mode="drop", unique_indices=True)
+    return pk, pidx, cnt
 
 
 def sample_threshold(key, kk: int, sample_log2: int = 20,
@@ -203,11 +77,9 @@ def sample_threshold(key, kk: int, sample_log2: int = 20,
     sort, quantile at kk/total inflated by ``margin`` plus a 4-sigma
     binomial sampling allowance.  Returns (T, q) — q only for tests.
 
-    ``margin`` 1.10 (was 1.25): with 2^20 samples the 4-sigma binomial term
-    already covers the global-undershoot risk (~1e-4 relative), and every
-    extra survivor tightens the PER-CHUNK budget — at s22 the 1.25 margin's
-    worst chunk sat 0.4% over budget (131,594 vs 131,072, diag_pack) and
-    silently cond-fell-back; at 1.10 every bench scale fits with room."""
+    ``margin`` 1.10: with 2^20 samples the 4-sigma binomial term already
+    covers the global-undershoot risk (~1e-4 relative), and every extra
+    survivor tightens the PER-CHUNK budget."""
     total = key.shape[0]
     n_s = min(1 << sample_log2, total)
     stride = total // n_s

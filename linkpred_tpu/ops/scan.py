@@ -3,9 +3,9 @@
 Reference parity (`/root/reference/inc/_vector.hxx`): ``inclusiveScan[Omp]W`` /
 ``exclusiveScan[Omp]W`` (:1374-1536, the two-pass chunked parallel scan), the
 ``sumValues``/``countValue`` reductions (:652-760), and the L1/L2/L∞ norm family
-(:776-1357).  The reference hand-chunks across OpenMP threads; on TPU these are
+(:776-1357).  The reference hand-chunks across OpenMP threads; here these are
 single XLA ops (`jnp.cumsum` / `jax.lax.associative_scan`) that the compiler
-parallelizes across the VPU.
+parallelizes.
 """
 from __future__ import annotations
 

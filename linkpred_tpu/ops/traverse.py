@@ -4,7 +4,7 @@ Reference parity: frontier-swap BFS with visit filter/callback
 (`/root/reference/inc/bfs.hxx:22-55`) and recursive DFS (`inc/dfs.hxx:19-25`), used
 by ``communitiesDisconnectedOmp`` (`inc/properties.hxx:379-400`).
 
-TPU-native design: BFS runs as a `lax.while_loop` of edge-parallel level expansions
+Design: BFS runs as a `lax.while_loop` of edge-parallel level expansions
 (frontier propagation by scatter-max over the edge list — the pull/push duality of
 the reference's per-vertex loop).  DFS order is inherently sequential, so it stays a
 host-side iterative routine (the reference's recursion, made stack-safe).

@@ -2,7 +2,7 @@
 
 Mirrors the reference's options/result types and metric entry points
 (`/root/reference/inc/predict.hxx:33-102,503-831`) while routing the computation
-through the TPU tiled scoring engine (`scoring.py`).  jit specialization over
+through the tiled scoring engine (`scoring.py`).  jit specialization over
 (metric, cap, k, padded sizes) replaces the reference's C++ template instantiation
 over <MINDEGREE1, MAXFACTOR2, FORCEHEAP, CUSTOMVALUE>.
 """
@@ -22,7 +22,8 @@ from .plan import TilePlan, build_plan
 from .scoring import CHUNK_TILES, CHUNK_TILES_PACKED, score_tiles_chunked
 
 __all__ = ["PredictOptions", "PredictResult", "predict_links",
-           "predict_links_multi", "top_per_source", "PlanCache"]
+           "predict_links_multi", "top_per_source", "PlanCache",
+           "selection_k"]
 
 _DEFAULT_MAX_EDGES = 1 << 20
 
@@ -52,9 +53,8 @@ class PredictResult:
     scoring_ms: float      # scoring only
     # device->host result transfer, reported separately and EXCLUDED from
     # time_ms: the reference's total covers compute (score+sort+merge) only
-    # (`predict.hxx:426-466`); on a relay-backed host the k-row fetch costs
-    # hundreds of ms and would otherwise masquerade as compute in CSV
-    # comparisons.
+    # (`predict.hxx:426-466`), so the k-row fetch must not masquerade as
+    # compute in CSV comparisons.
     transfer_ms: float = 0.0
 
     @property
@@ -97,13 +97,23 @@ class PlanCache:
 
     def device_graph(self, g: CSRGraph) -> CSRGraph:
         """Device copy of ``g``, uploaded once per graph (the CSR arrays are tens
-        of MB; re-uploading per metric/threshold costs real wall-clock on
-        relay-backed hosts)."""
+        of MB; re-uploading per metric/threshold costs wall-clock)."""
         key = ("gdev", id(g.offsets), id(g.indices), g.n, g.m)
         return self._entry(key, g, g.device)
 
     def clear(self) -> None:
         self._cache.clear()
+
+
+def selection_k(plan: TilePlan, max_edges: int) -> int:
+    """Top-k width the device selection runs at: the exact request rounded
+    up to a multiple of 1024 (jit-shape bucketing), at most the slot count
+    of the plan and its sub-plans."""
+    # huge_slots already covers the hub sub-plan's stream; only the top-level
+    # side stream's slots are additional.
+    all_slots = max(plan.total_slots + plan.huge_slots
+                    + (plan.side_plan.total_slots if plan.side_plan else 0), 1)
+    return min(-(-min(max_edges, all_slots) // 1024) * 1024, all_slots)
 
 
 def predict_links_multi(
@@ -139,7 +149,7 @@ def predict_links_multi(
     metrics (amortized cost per technique).
 
     ``mesh``: optional 1-D `jax.sharding.Mesh`; tiles shard across its axis with
-    a hierarchical top-k merge over ICI (the multi-chip replacement for the
+    a hierarchical top-k merge across devices (the multi-chip replacement for the
     reference's per-thread heaps + serial merge, `predict.hxx:440-459`).
     """
     specs = tuple(get_metric(m) for m in metrics)
@@ -170,20 +180,7 @@ def predict_links_multi(
         return out
 
     sub_plans = _collect_subplans(plan)
-    # huge_slots already covers the hub sub-plan's stream; only the top-level
-    # side stream's slots are additional.
-    all_slots = (plan.total_slots + plan.huge_slots
-                 + (plan.side_plan.total_slots if plan.side_plan else 0))
-    # Selection k: EXACT request, rounded only to a 1024 multiple (jit-shape
-    # bucketing).  The old next_pow2 rounding inflated k up to 1.88x (s21
-    # bench: 2.23M -> 4.19M), which (a) carried ~2x lanes through every
-    # deferred-selection level past L0, and (b) pushed the threshold-pack
-    # sampler to admit ~2x survivors — blowing the per-chunk pack budget at
-    # the bench shapes, so the pack cond silently fell back to the full
-    # blocked sort and the round-4 pack feature measured as pure overhead
-    # (round-5 trace: the 530 ms selection conditional took the fallback arm).
-    k = min(-(-min(max_edges, max(all_slots, 1)) // 1024) * 1024,
-            max(all_slots, 1))
+    k = selection_k(plan, max_edges)
     gd = plan_cache.device_graph(g) if plan_cache is not None else g.device()
     # The stable w-key sort serves both streams whenever ids fit (n <= 2^30);
     # w_bits == 0 selects the sentinel two-key edge sort (set

@@ -26,18 +26,18 @@ def maxf2_mask(du, dw, maxf2):
     (`predict.hxx:221,295`): note it compares deg(u) against maxf2*deg(u)
     (a trivially-true self-compare) — preserved verbatim for parity; the
     published experiment never sets MAXFACTOR2.  This is the ONLY statement
-    of the predicate: the XLA tail, the fused Pallas kernel, and the host
-    oracle all call it (elementwise jnp/np ops only, so one definition
-    serves device traces, Pallas kernel bodies, and NumPy arrays alike)."""
+    of the predicate: the device tail and the host oracle both call it
+    (elementwise jnp/np ops only, so one definition serves device traces and
+    NumPy arrays alike)."""
     return (du <= maxf2 * du) & (dw <= maxf2 * du)
 
 _LN2 = 0.6931471805599453
 
 
 def _accurate_log(x):
-    """float32 natural log accurate to ~2e-7 relative (vs ~6e-5 for the TPU
-    VPU's builtin fast-math ``log`` — measured 1.8203751 vs the true 1.8204785
-    on an Adamic-Adar score before this).  Exact range reduction via ``frexp``
+    """float32 natural log accurate to ~2e-7 relative on every backend (a
+    device's builtin fast-math ``log`` need not be).  Exact range reduction
+    via ``frexp``
     (pure bit manipulation), then log(m) for m in [0.5, 1) by the atanh
     series: ``log(m) = 2s(1 + s²/3 + ... + s¹⁰/11)``, s = (m-1)/(m+1),
     |s| <= 1/3 so the truncation error is ~9e-8.  The reference accumulates
@@ -122,7 +122,7 @@ METRICS = {
 }
 
 # Technique-name stems used in result-log lines, mirroring the reference's
-# function-name-derived labels (main.cxx:212-220) with the Tpu backend suffix.
+# function-name-derived labels (main.cxx:212-220) with the Jax suffix.
 TECHNIQUE_NAMES = {
     "common_neighbors": "predictLinksCommonNeighbors",
     "jaccard_coefficient": "predictLinksJaccardCoefficient",

@@ -32,9 +32,8 @@ shapes, so we *precompute* a balanced schedule on the host:
   STABLE single-key sort of w with u/degrees as payloads, and one max-scan —
   stability keeps each (w, u) group contiguous (dead slots were dropped at plan
   time), so no source-span bound exists and tiles fill to ``cap`` at any
-  n <= 2^30.  ZERO full-table gathers (measured: in-scan gathers
-  cost 10-31 ms per 2^20 lanes; narrow stable keyed sorts are 2x faster than
-  wide packed keys).  AA/RA weights are computed elementwise from
+  n <= 2^30.  ZERO full-table gathers.  AA/RA weights are computed
+  elementwise from
   ``slot_middeg``.  Used when the slot count fits ``slot_budget``.
 * **Edge stream** (``packed=False``): per-edge-row arrays only — ``fe_work``
   (slots per row), ``fe_adr`` (= offsets[mid] + skip, the row's first expanded
@@ -69,9 +68,8 @@ KILL = -(1 << 30)
 # Ceiling on precomputed slots (packed path; ~12 device bytes per slot for
 # the three int32 arrays).  Beyond this, fall back to the edge stream.
 # ``None`` (the default when LINKPRED_SLOT_BUDGET is unset) auto-sizes from
-# the queried device HBM (utils/device.py: ~55% of HBM / 12 B — ≈787M slots
-# on a 16 GB v5e, so RMAT-23-scale LHub expansions (~575M slots ≈ 6.9 GB)
-# ride the packed path with zero knobs).  Tests monkeypatch a concrete int.
+# the queried device memory (utils/device.py: ~55% of it / 12 B).  Tests
+# monkeypatch a concrete int.
 SLOT_BUDGET = (int(os.environ["LINKPRED_SLOT_BUDGET"])
                if os.environ.get("LINKPRED_SLOT_BUDGET") else None)
 
@@ -87,8 +85,8 @@ def _slot_budget() -> int:
 # this many slots the deferred selection cannot bound its raw buffer (a single
 # tile is not segmentable) and a multi-metric pass would OOM the device, so
 # bigger hubs fall back to the exact host scorer (score_huge_sources_host).
-# ``None`` auto-sizes to HALF one selection segment (2^27 on a 16 GB v5e —
-# the measured-safe bound); tests monkeypatch a concrete int.
+# ``None`` auto-sizes to HALF one selection segment; tests monkeypatch a
+# concrete int.
 HUGE_DEVICE_MAX = None
 
 
@@ -98,13 +96,12 @@ def _huge_device_max() -> int:
     from ..utils.device import auto_seg_lanes
     return auto_seg_lanes() // 2
 
-# Adaptive cap (cap=None): target tile count and cap bounds.  Measured on v5e
-# (RMAT-18/19/20 bench cap sweeps, edges/s at caps 2^20/2^21/2^22):
-#   s18: 50.8 / 47.9 / 40.7      s19: 123.5 / 134.5 / 134.2
-#   s20: 74.2 / 73.4 / 71.4
-# The optimum sits at ~32 full tiles (s18@2^20, s19@2^21) — more tiles pay
-# per-tile fixed costs (scan step, cummax tail), fewer pay the sort's
-# superlinearity — and caps beyond 2^21 never win, so the ceiling stays there.
+# Adaptive cap (cap=None): target tile count and cap bounds.  Swept on the
+# H100 at R-MAT 21 (PERF.md): single-metric scoring gains from larger caps,
+# but above 2^21 the nine-metric pass's raw buffer crosses the selection
+# segment bound (`scoring.scan_tiles`) and loses more than that, so the
+# ceiling stays until cap and segment bound are tuned together per cell.
+# The floor keeps toy graphs off large sorts and was not re-derived.
 AUTO_CAP_TILES = 32
 AUTO_CAP_MIN = 1 << 16
 AUTO_CAP_MAX = 1 << 21
@@ -193,10 +190,8 @@ def _pad_bucket(x: int) -> int:
     """Array-length padding bucket: the smallest value >= x of the form
     m * 2^e with 8 <= m <= 16 (a 4-bit mantissa).  Replaces `_next_pow2` for
     the big stream arrays: pow2 padding cost up to 2x memory right above a
-    power boundary — an IHub s16 plan (566M kept slots) padded to 2^30 slots
-    = 17.2 GB of stream arrays and OOMed 16 GB HBM (round-5 find), while the
-    bucket pads at most ~11% and still bounds jit shape variants to four per
-    octave (the padding exists only for shape-bucketing across experiment
+    power boundary, while the bucket pads at most ~11% and still bounds jit
+    shape variants to four per octave (the padding exists only for shape-bucketing across experiment
     batches)."""
     x = max(int(x), 8)
     e = max(x.bit_length() - 4, 0)
@@ -213,9 +208,7 @@ def _pad_tiles(t: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     # Edge stream (1-element dummies for packed plans, which never read it).
-    # Per-row precomputes fold the device rebuild to ONE eloc-gather each
-    # (measured 20% per tile over the 5-array src/mid/skip/cnt layout —
-    # experiments/ab_edge3.py):
+    # Per-row precomputes fold the device rebuild to ONE eloc-gather each:
     fe_work: np.ndarray   # int32[M1_pad] = #neighbors of mid expanded; 0 in padding
     fe_adr: np.ndarray    # int32[M1_pad] = offsets[mid] + skip: address of the
     #                        first expanded neighbor (the w <= u head of mid's
@@ -250,8 +243,7 @@ class TilePlan:
         default_factory=lambda: np.empty(0, dtype=np.int64))
     # Packed slot stream (None unless packed).  Everything the device pipeline
     # needs is precomputed per slot, so tiles run with ZERO full-table gathers
-    # (measured: in-scan gathers cost 10-31 ms per 2^20 lanes; dynamic-slice
-    # window reads are ~free):
+    # (tile windows are dynamic-slice reads):
     slot_w: Optional[np.ndarray] = None      # int32[S_pad] candidate w (the key)
     slot_u: Optional[np.ndarray] = None      # int32[S_pad] bare source id (dead
     #                        slots are dropped at plan time -> no flag bit)
@@ -310,8 +302,8 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     not just w > s (``upper_only=False``).
 
     ``cap=None`` picks the tile capacity adaptively: the next power of two that
-    yields ~``AUTO_CAP_TILES`` tiles, clamped to [2^16, 2^21] (measured sweet
-    spot on v5e — see the module constants).  Pass an explicit cap to pin jit
+    yields ~``AUTO_CAP_TILES`` tiles, clamped to [``AUTO_CAP_MIN``,
+    ``AUTO_CAP_MAX``] (see the module constants).  Pass an explicit cap to pin jit
     variants across runs (the harness does, for sweep-wide shape stability).
 
     ``_keep_src``/``_allow_huge`` are internal: the huge-hub sub-plan restricts
@@ -448,16 +440,14 @@ def build_plan(g: CSRGraph, min_degree1: int, cap: Optional[int] = None,
     # marks pad/dead lanes), u rides as a payload, and sort stability plus the
     # killers-first stream order keeps each (w, u) group contiguous with its
     # killer at the head.  No source-span bound exists, so tiles fill to cap
-    # and any n < 2^30 works.  (Measured: the stable 3-operand w-key sort is
-    # 2x FASTER than the old unstable packed-key sort — narrow keys win.)
+    # and any n < 2^30 works.
     w_bits = max(int(max(n - 1, 1)).bit_length(), 1)
     keyed = w_bits + 1 <= 31             # one spare value range for pads
     # Slot-stream materializability: the budget must bound the TOTAL slots
     # resident at once — the main stream at its PADDED size (<= 9/8 of the
     # kept count, see _pad_bucket) PLUS the device-routed hub sub-plan's
     # stream, which materializes beside it.  Counting only the raw main
-    # count let an IHub s16 plan ride the packed path into an HBM OOM
-    # (round-5 find: 566M kept slots pow2-padded to 2^30 = 17.2 GB).
+    # count let an IHub plan ride the packed path into a device OOM.
     packed = keyed and total_slots * 9 // 8 + dev_huge_slots <= slot_budget
 
     def partition(prefix, cap_s=None):

@@ -2,7 +2,7 @@
 
 Includes the reference's prime helpers (`/root/reference/inc/_cmath.hxx:
 100-146`) for parity: there they size open-addressing hash capacities; the
-sort-based TPU engine never needs a prime capacity, so these are host-side
+sort-based engine never needs a prime capacity, so these are host-side
 utility functions only.
 """
 from __future__ import annotations

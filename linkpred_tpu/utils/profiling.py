@@ -1,10 +1,9 @@
 """Device profiling: trace capture + per-op summary.
 
 The reference's observability is wall-clock only (`measureDuration`,
-`/root/reference/inc/_utility.hxx:113-119`).  On TPU the interesting question is
-*which op* dominates device time, so this wraps `jax.profiler` trace capture and
-parses the chrome-trace output into an aggregated per-op table — the tool that
-located every bottleneck in this engine's optimization history (see STATUS.md).
+`/root/reference/inc/_utility.hxx:113-119`).  On an accelerator the interesting
+question is *which op* dominates device time, so this wraps `jax.profiler` trace
+capture and parses the chrome-trace output into an aggregated per-op table.
 """
 from __future__ import annotations
 
@@ -53,8 +52,8 @@ def summarize_trace(trace_dir: str, top: int = 25) -> list[tuple[str, float]]:
 
 def profile_fn(fn: Callable, *args, top: int = 25, **kwargs):
     """Run ``fn(*args, **kwargs)`` under a trace; returns (result, summary)."""
-    from .timing import sync
+    import jax
 
     with trace() as d:
-        result = sync(fn(*args, **kwargs))
+        result = jax.block_until_ready(fn(*args, **kwargs))
     return result, summarize_trace(d, top=top)

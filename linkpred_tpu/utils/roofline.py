@@ -1,70 +1,65 @@
-"""HBM roofline accounting: how far is a measured pass from speed-of-light?
+"""Device-memory roofline accounting: how far is a measured pass from the
+bandwidth bound?
 
-The round-3 verdict's critique: "at the measured floor" claims were stated
-against `lax.sort`'s floor, with no absolute bandwidth figure — unauditable
-in roofline terms.  This module prices a scoring pass in MINIMUM HBM bytes
-(every stream read once, every intermediate written+read once, the sort at
-its theoretical one-read-one-write) and reports achieved GB/s against the
-chip's peak.  The model is a LOWER bound on traffic — XLA's sort makes
+This module prices a scoring pass in MINIMUM device-memory bytes (every
+stream read once, every intermediate written+read once, the sort at its
+theoretical one-read-one-write) and reports achieved GB/s against the card's
+published peak.  The model is a LOWER bound on traffic — XLA's sort makes
 multiple internal passes — so `frac_of_peak` is an upper bound on how close
 the engine could possibly be; it makes "we are N× off the roofline" a
 checkable statement (bench.py emits it with every headline number).
 
-Per-slot byte model (packed stream, deg16, key64, fused tail, pack select):
+Per-slot byte model (packed stream, deg16, key64, pack select):
 
   stream window reads      slot_w + slot_u + slot_udeg        12 B
   key64 build write        u64 key                             8 B
   tile sort (min 1r+1w)    (key 8 + payload 4) x 2            24 B
-  flags/hi/lo pass         read key64 8, write 4+4+4          20 B  [w/ dpack
-  fused tail kernel        read 4+4+4+4, write 4M+4+4         16+4M B
+  run-reduce tail          cummax/score intermediates,
+                           write scores 4M + ku 4 + kw 4      24+4M+8 B
   selection (pack path)    read skey 4M, pack write 9/RATIO,
                            packed sort ~2x9/RATIO             ~4M+3.4 B
 
 (M = number of metrics; weighted metrics add a 4 B f32 weight through the
-sort: +4 stream read, +8 sort, +4 kernel read.)  The unfused/blocked
-variants substitute the XLA tail (~+24 B of cummax/score intermediates) and
-the blocked selection (~2 x 8 B x levels), priced in
-:func:`packed_pass_min_bytes` so every engine mode gets an honest figure.
+sort: +4 stream read, +8 sort.)  The blocked selection (~2 x 8 B x levels)
+is priced in :func:`packed_pass_min_bytes` too, so either selection gets an
+honest figure.
 """
 from __future__ import annotations
 
-import re
 from typing import Optional
 
 import jax
 
 __all__ = ["device_peak_gbps", "packed_pass_min_bytes", "roofline_report"]
 
-# Peak HBM bandwidth per chip generation (GB/s; public spec sheets).
-_PEAKS = [
-    (re.compile(r"v5 lite|v5e", re.I), 819.0),     # TPU v5e
-    (re.compile(r"v5p|v5$", re.I), 2765.0),        # TPU v5p
-    (re.compile(r"v6 lite|v6e|trillium", re.I), 1640.0),
-    (re.compile(r"v4", re.I), 1228.0),
-    (re.compile(r"v3", re.I), 900.0),
-    (re.compile(r"v2", re.I), 700.0),
-]
+# Peak device-memory bandwidth (GB/s) by device_kind substring; NVIDIA's
+# H100 data sheet (SXM, PCIe and NVL parts).
+PEAK_GBPS = {
+    "H100 80GB HBM3": 3350.0,
+    "H100 PCIe": 2000.0,
+    "H100 NVL": 3900.0,
+}
 
 
 def device_peak_gbps(device=None) -> Optional[float]:
-    """Peak HBM GB/s for ``device`` (default: first jax device); None if
-    unknown (CPU / unrecognized kind)."""
-    try:
-        d = device or jax.devices()[0]
-        kind = getattr(d, "device_kind", "") or ""
-    except Exception:
+    """Peak device-memory GB/s for ``device`` (default: the first JAX
+    device).  The CPU has no peak here (``None``); an accelerator kind that
+    is not in ``PEAK_GBPS`` raises."""
+    d = device or jax.devices()[0]
+    if d.platform == "cpu":
         return None
-    for pat, peak in _PEAKS:
-        if pat.search(kind):
+    for kind, peak in PEAK_GBPS.items():
+        if kind in d.device_kind:
             return peak
-    return None
+    raise KeyError(f"no peak bandwidth known for device kind "
+                   f"{d.device_kind!r}; add it to PEAK_GBPS")
 
 
 def packed_pass_min_bytes(total_slots: int, num_metrics: int = 1,
                           weighted: int = 0, key64: bool = True,
-                          deg16: bool = True, fused: bool = True,
-                          sel_pack: bool = True) -> int:
-    """Minimum HBM bytes for one packed-stream scoring pass (model above)."""
+                          deg16: bool = True, sel_pack: bool = True) -> int:
+    """Minimum device-memory bytes for one packed-stream scoring pass
+    (model above)."""
     m = num_metrics
     b = 12.0                                    # stream window reads
     if not deg16:
@@ -74,11 +69,7 @@ def packed_pass_min_bytes(total_slots: int, num_metrics: int = 1,
     payload = (4 if deg16 else 8) + 4 * weighted
     b += 2 * ((8 if key64 else 8) + payload)    # sort: one read + one write
     #   (u32 mode sorts (key4 + upay4) + payload — same 8 B of keys)
-    if fused:
-        b += (8 if key64 else 8) + 12           # flags pass r/w
-        b += 16 + 4 * weighted + 4 * m + 8      # kernel read + skey/ku/kw
-    else:
-        b += 24 + 4 * m + 8                     # XLA tail intermediates
+    b += 24 + 4 * m + 8                         # tail intermediates + outputs
     if sel_pack:
         b += 4 * m + (9.0 / 8) * m + 2 * (9.0 / 8) * m   # pack + small sort
     else:
@@ -88,12 +79,13 @@ def packed_pass_min_bytes(total_slots: int, num_metrics: int = 1,
 
 def roofline_report(min_bytes: int, device_ms: float,
                     peak_gbps: Optional[float] = None) -> dict:
-    """Achieved GB/s on the minimum-byte model + fraction of chip peak."""
+    """Achieved GB/s on the minimum-byte model, and the fraction of the
+    card's peak where the device has one (not on the CPU)."""
     peak = peak_gbps if peak_gbps is not None else device_peak_gbps()
     gbps = min_bytes / max(device_ms, 1e-9) / 1e6
     out = {"hbm_model_bytes": int(min_bytes),
            "achieved_gbps_min_model": round(gbps, 1)}
-    if peak:
+    if peak is not None:
         out["hbm_peak_gbps"] = peak
         out["frac_of_peak"] = round(gbps / peak, 4)
     return out

@@ -1,6 +1,6 @@
 // Native MTX coordinate-body parser for linkpred_tpu.
 //
-// TPU-native equivalent of the reference's blocked strtoull/strtod body parse
+// Equivalent of the reference's blocked strtoull/strtod body parse
 // (/root/reference/inc/mtx.hxx:152-193): the reference streams 131072-line blocks
 // through an OpenMP loop; here one tight single pass over an mmapped buffer feeds
 // preallocated int64/double columns handed in by NumPy via ctypes (the downstream

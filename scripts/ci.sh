@@ -7,8 +7,7 @@
 #   leg 2 (u32):     the u32 three-operand engine (LINKPRED_KEY64=0).
 #   leg 3 (x64):     key64 engine again under process-global JAX_ENABLE_X64
 #                    (conftest enables it when LINKPRED_KEY64=1) — pins the
-#                    x64-interplay regressions (Mosaic 64-bit lowering, the
-#                    gridded-pallas-under-x64 compile-helper crash).
+#                    x64-interplay regressions.
 #
 # The engine mode is call state (scoring.py::default_key64), so every leg
 # gives its engine the full oracle/differential/mesh coverage.

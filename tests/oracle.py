@@ -2,7 +2,7 @@
 
 Independent re-derivation of the reference algorithm (`/root/reference/inc/
 predict.hxx:214-265` + metric formulas `:503-831`) in dense linear algebra, used as
-ground truth for the TPU engine. float64 throughout.
+ground truth for the engine. float64 throughout.
 """
 from __future__ import annotations
 

@@ -1,8 +1,7 @@
 """Threshold-pack selection (ops/compact.py) — exactness and fallback.
 
-The shift-pack kernel runs in Pallas interpret mode on CPU; tests use small
-chunk sizes (the production 2^17 chunk is just more grid steps of the same
-code).  The oracle is NumPy boolean compaction.
+Tests use small chunk sizes (the production chunk is just more chunks of the
+same code).  The oracle is NumPy boolean compaction.
 """
 import numpy as np
 import jax
@@ -13,7 +12,7 @@ from linkpred_tpu.ops import compact
 from linkpred_tpu.ops.compact import pack_survivors, sample_threshold
 
 CHUNK = 1 << 11     # 16 rows x 128 — small for interpret mode
-RATIO = 2   # out blocks keep >= 8 sublanes (the TPU lowering's block rule)
+RATIO = 2
 
 
 def _oracle_pack(key, thr, chunk, ratio):

@@ -96,7 +96,7 @@ def test_run_experiment_recovers_planted_edges(rng):
 
 def test_result_line_grammar_roundtrip(tmp_path):
     line = result_line(0.0, 1e-3, 8, 1234.5, 1000.25, 0.125, 0.5,
-                       "predictLinksJaccardCoefficientTpu64")
+                       "predictLinksJaccardCoefficientJax64")
     log_path = tmp_path / "test.log"
     log_path.write_text(
         "2026-08-16 12:00:00 OMP_NUM_THREADS=8\n"
@@ -114,7 +114,7 @@ def test_result_line_grammar_roundtrip(tmp_path):
     assert row["scoring_time"] == pytest.approx(1000.2, abs=0.1)
     assert row["precision"] == pytest.approx(0.125)
     assert row["recall"] == pytest.approx(0.5)
-    assert row["technique"] == "predictLinksJaccardCoefficientTpu64"
+    assert row["technique"] == "predictLinksJaccardCoefficientJax64"
 
 
 def test_processjs_fixture_byte_parity(tmp_path):
@@ -169,14 +169,14 @@ def test_reference_processjs_parses_our_log(tmp_path):
         "2026-08-16 12:00:00 OMP_NUM_THREADS=1\n"
         "2026-08-16 12:00:00 Loading graph /tmp/toy.mtx ...\n"
         "2026-08-16 12:00:01 order: 10 size: 20 [directed] {}\n"
-        + result_line(0.0, 1e-2, 1, 10.0, 8.0, 0.25, 0.75, "predictLinksCommonNeighborsTpu0")
+        + result_line(0.0, 1e-2, 1, 10.0, 8.0, 0.25, 0.75, "predictLinksCommonNeighborsJax0")
         + "\n")
     out_csv = tmp_path / "out.csv"
     subprocess.run(
         [node, "/root/reference/process.js", "csv", str(log_path), str(out_csv)],
         check=True, capture_output=True)
     text = out_csv.read_text()
-    assert "predictLinksCommonNeighborsTpu0" in text
+    assert "predictLinksCommonNeighborsJax0" in text
     assert '"0.25"' in text and '"0.75"' in text
 
 
@@ -213,10 +213,10 @@ def test_cli_end_to_end(tmp_path, capsys):
     rows = data["toy"]
     assert len(rows) == 4  # 2 metrics x 2 degrees
     techniques = {r["technique"] for r in rows}
-    # Default is fused multi-metric: amortized rows carry the TpuFused tag so
+    # Default is fused multi-metric: amortized rows carry the JaxFused tag so
     # reference-CSV readers can't mistake them for per-technique scans.
-    assert "predictLinksCommonNeighborsTpuFused0" in techniques
-    assert "predictLinksAdamicAdarCoefficientTpuFused32" in techniques
+    assert "predictLinksCommonNeighborsJaxFused0" in techniques
+    assert "predictLinksAdamicAdarCoefficientJaxFused32" in techniques
     assert all(r["order"] == g.n for r in rows)
 
     rc = main([str(mtx), "1", "0",
@@ -231,14 +231,14 @@ def test_cli_end_to_end(tmp_path, capsys):
     rows = read_log(str(log_path))["toy"]
     # --unfused: each metric is its own full pass — plain (honest) labels.
     assert {r["technique"] for r in rows} == {
-        "predictLinksCommonNeighborsTpu0",
-        "predictLinksAdamicAdarCoefficientTpu0",
+        "predictLinksCommonNeighborsJax0",
+        "predictLinksAdamicAdarCoefficientJax0",
     }
 
 
 def test_fused_rows_tagged_single_metric_plain(rng):
-    """Amortized (fused, multi-metric) rows are tagged ...TpuFused<deg>; a
-    single-metric run amortizes nothing, so it keeps the plain ...Tpu<deg>
+    """Amortized (fused, multi-metric) rows are tagged ...JaxFused<deg>; a
+    single-metric run amortizes nothing, so it keeps the plain ...Jax<deg>
     label even with fused_metrics=True (VERDICT r2 weak #2)."""
     g = community_graph(rng, n_comm=3, size=12, p_in=0.7)
     base = dict(repeat_batch=1, repeat_method=1,
@@ -248,21 +248,21 @@ def test_fused_rows_tagged_single_metric_plain(rng):
     rows = run_experiment(g, ExperimentConfig(
         metrics=("common_neighbors", "jaccard_coefficient"), **base))
     assert {r["technique"] for r in rows} == {
-        "predictLinksCommonNeighborsTpuFused0",
-        "predictLinksJaccardCoefficientTpuFused0",
+        "predictLinksCommonNeighborsJaxFused0",
+        "predictLinksJaccardCoefficientJaxFused0",
     }
 
     rows = run_experiment(g, ExperimentConfig(
         metrics=("common_neighbors",), **base))
     assert {r["technique"] for r in rows} == {
-        "predictLinksCommonNeighborsTpu0"}
+        "predictLinksCommonNeighborsJax0"}
 
     rows = run_experiment(g, ExperimentConfig(
         metrics=("common_neighbors", "jaccard_coefficient"),
         fused_metrics=False, **base))
     assert {r["technique"] for r in rows} == {
-        "predictLinksCommonNeighborsTpu0",
-        "predictLinksJaccardCoefficientTpu0",
+        "predictLinksCommonNeighborsJax0",
+        "predictLinksJaccardCoefficientJax0",
     }
 
 
@@ -279,7 +279,7 @@ def test_jsonl_output(rng):
     run_experiment(g, cfg, emit=lines.append)
     assert len(lines) == 1
     row = json.loads(lines[0])
-    assert row["technique"] == "predictLinksCommonNeighborsTpu0"
+    assert row["technique"] == "predictLinksCommonNeighborsJax0"
     assert 0.0 <= row["precision"] <= 1.0
 
 

@@ -28,7 +28,7 @@ def test_heuristic_predictor_matches_predict_links(rng):
     ref = predict_links(g, metric="jaccard_coefficient", min_degree1=0,
                         options=PredictOptions(max_edges=50), cap=4096)
     np.testing.assert_allclose(np.sort(res.score), np.sort(ref.score), rtol=1e-6)
-    assert m.name == "predictLinksJaccardCoefficientTpu0"
+    assert m.name == "predictLinksJaccardCoefficientJax0"
 
 
 def test_ihub_lhub_factories():

@@ -356,9 +356,9 @@ def test_mega_hub_host_fallback(rng, monkeypatch):
 
 
 def test_accurate_log_vs_float64():
-    # the AA weight path computes log on device; the TPU VPU's builtin log is
-    # only ~6e-5 accurate, so metrics.py evaluates it via exact frexp range
-    # reduction + an atanh series — must stay within ~2e-7 of float64
+    # the AA weight path computes log on device; metrics.py evaluates it via
+    # exact frexp range reduction + an atanh series, so a device's fast-math
+    # log never enters — must stay within ~2e-7 of float64
     import jax.numpy as jnp
 
     from linkpred_tpu.predict.metrics import _accurate_log

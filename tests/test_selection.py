@@ -1,7 +1,6 @@
 """Blocked deferred selection (`scoring._argselect_blocked`): exactness.
 
-lax.sort per-lane cost grows super-linearly with lane count on v5e, so the
-deferred selection sorts per _SEL_BLOCK-lane block and recurses on block
+The deferred selection sorts per _SEL_BLOCK-lane block and recurses on block
 winners.  These tests shrink the block so toy graphs exercise multi-level
 blocking, and assert the result matches the oracle and the flat (block=0)
 path exactly.

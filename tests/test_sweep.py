@@ -24,7 +24,7 @@ def test_sweep_end_to_end(tmp_path, capsys):
     assert csv.exists()
     lines = csv.read_text().strip().split("\n")
     assert len(lines) >= 2
-    assert "predictLinksCommonNeighborsTpu0" in lines[1]
+    assert "predictLinksCommonNeighborsJax0" in lines[1]
 
 
 def test_sweep_resume_skips_done(tmp_path, capsys):
